@@ -1,10 +1,10 @@
-"""saigegds_tpu: a TPU-native mixed-model association engine.
+"""saigegds_tpu: a mixed-model association engine in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-SAIGEgds R package (null GLMM fitting against an implicit GRM, variance-ratio
+A from-scratch JAX/XLA framework with the capabilities of the SAIGEgds R
+package (null GLMM fitting against an implicit GRM, variance-ratio
 estimation, score tests with saddlepoint-approximation p-values, burden /
-ACAT-V / ACAT-O aggregate tests, GxG interaction tests), designed mesh-first
-for multi-chip TPU execution.
+ACAT-V / ACAT-O aggregate tests, GxG interaction tests), run on a GPU and
+sharded over several with a device mesh.
 
 The reference contract is float64 throughout (SAIGEgds promotes all float32
 math in the original SAIGE to double, ``/root/reference/README.md:12``), so

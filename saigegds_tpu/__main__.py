@@ -1,7 +1,7 @@
 """Command-line interface: fit / scan / aggregate / merge / info.
 
-The reference is an R library; for production TPU deployment a CLI makes
-the workflow schedulable (one shard per host, merge at the end):
+The reference is an R library; a CLI makes the workflow schedulable on
+accelerator hosts (one shard per host, merge at the end):
 
     python -m saigegds_tpu fit --formula "y ~ x1 + x2" --pheno pheno.tsv \\
         --gds grm.gds --out model.npz [--dense] [--stream] [--checkpoint ck]
@@ -21,10 +21,33 @@ import argparse
 import sys
 
 
-def _read_pheno(path):
-    import pandas as pd
+def _read_pheno(path) -> dict:
+    """Phenotype TSV/CSV (header row) -> {column: numpy array}.  A column
+    of integers reads as int64, of numbers as float64 (empty or NA cells
+    as NaN), anything else as strings — what the fit needs, without
+    pandas."""
+    import csv
+    import gzip
     sep = "," if path.endswith(".csv") or path.endswith(".csv.gz") else "\t"
-    return pd.read_csv(path, sep=sep)
+    with (gzip.open(path, "rt") if path.endswith(".gz")
+          else open(path, newline="")) as fh:
+        rows = list(csv.reader(fh, delimiter=sep))
+    header, body = rows[0], [r for r in rows[1:] if r]
+    return {name: _pheno_column([r[j] for r in body])
+            for j, name in enumerate(header)}
+
+
+def _pheno_column(cells):
+    import numpy as np
+    try:
+        return np.asarray([int(c) for c in cells], np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.asarray([np.nan if c in ("", "NA", "NaN", "nan") else
+                           float(c) for c in cells], np.float64)
+    except ValueError:
+        return np.asarray(cells, dtype=object)
 
 
 def main(argv=None):
@@ -138,6 +161,8 @@ def main(argv=None):
 
     args = ap.parse_args(argv)
 
+    from saigegds_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import saigegds_tpu as st
     from saigegds_tpu.config import AggregateConfig, NullModelConfig, ScanConfig
 
@@ -198,17 +223,18 @@ def main(argv=None):
                     position_range=_parse_pos_range(args.pos_range)
                     if args.pos_range else None)
             kwargs["variant_mask"] = mask
+        from saigegds_tpu.assoc.single import scan_table, scan_tables_multi
         if len(args.model) > 1:
-            st.assoc_spa_multi(seq, args.model,
-                               ScanConfig(mac=args.mac, maf=args.maf),
-                               res_savefn=args.out, verbose=True,
-                               res_compress=args.res_compress,
-                               model_batch=args.model_batch, **kwargs)
+            scan_tables_multi(seq, args.model,
+                              ScanConfig(mac=args.mac, maf=args.maf),
+                              res_savefn=args.out, verbose=True,
+                              res_compress=args.res_compress,
+                              model_batch=args.model_batch, **kwargs)
         else:
-            st.assoc_spa(seq, args.model[0],
-                         ScanConfig(mac=args.mac, maf=args.maf),
-                         res_savefn=args.out, verbose=True,
-                         res_compress=args.res_compress, **kwargs)
+            scan_table(seq, args.model[0],
+                       ScanConfig(mac=args.mac, maf=args.maf),
+                       res_savefn=args.out, verbose=True,
+                       res_compress=args.res_compress, **kwargs)
         return 0
 
     if args.cmd == "gxg":
@@ -236,7 +262,9 @@ def main(argv=None):
         return 0
 
     # aggregate commands
-    from saigegds_tpu.assoc.aggregate import (shard_units, sliding_windows,
+    from saigegds_tpu.assoc.aggregate import (acat_o_table, acat_v_table,
+                                              burden_table, shard_units,
+                                              sliding_windows,
                                               units_from_groups)
     from saigegds_tpu.io.seqarray import SeqData
     seq = SeqData(args.gds)
@@ -249,11 +277,11 @@ def main(argv=None):
     if args.unit_shard:
         i, n = _parse_shard(args.unit_shard)
         units = shard_units(units, i, n)
-    fn = {"burden": st.assoc_burden, "acat-v": st.assoc_acat_v,
-          "acat-o": st.assoc_acat_o}[args.cmd]
-    tab = fn(seq, args.model, units, AggregateConfig(), res_savefn=args.out,
-             res_compress=args.res_compress)
-    print(f"{args.cmd}: {len(tab)} units -> {args.out}")
+    fn = {"burden": burden_table, "acat-v": acat_v_table,
+          "acat-o": acat_o_table}[args.cmd]
+    fn(seq, args.model, units, AggregateConfig(), res_savefn=args.out,
+       res_compress=args.res_compress)
+    print(f"{args.cmd}: {len(units)} units -> {args.out}")
     return 0
 
 

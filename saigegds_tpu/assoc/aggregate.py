@@ -42,7 +42,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
-import pandas as pd
 
 from ..config import AggregateConfig
 from ..io.seqarray import SeqData
@@ -51,7 +50,7 @@ from ..ops.acat import beta_weights
 from ..ops.score import ScanParams, score_stats_binary, score_stats_quant, \
     spa_refine_binary
 from ..utils.stats import acat_p
-from .single import _match_samples, _pad_block, _spa_cap, _spa_nnz
+from .single import _frame, _match_samples, _pad_block, _spa_cap, _spa_nnz
 
 SINGLE_FETCH = 512   # variants per random-access fetch in the singles stream
 
@@ -60,7 +59,8 @@ SINGLE_FETCH = 512   # variants per random-access fetch in the singles stream
 class VariantUnits:
     """A list of variant-index units (the SeqUnitListClass analog)."""
 
-    desp: pd.DataFrame              # unit descriptors (chr, start, end, ...)
+    desp: dict                      # unit descriptor columns (chr, start,
+    #                                 end | set); a DataFrame also works
     index: List[np.ndarray]         # 0-based variant indices per unit
 
     def __len__(self):
@@ -82,7 +82,8 @@ def sliding_windows(seq: SeqData, win_size: int = 10000, win_shift: int = 5000,
         else np.asarray(variant_mask, bool)
     desp_rows = []
     index = []
-    for ch in pd.unique(chrom[keep]):
+    _, first = np.unique(chrom[keep], return_index=True)
+    for ch in chrom[keep][np.sort(first)]:       # order of appearance
         m = (chrom == ch) & keep
         p = pos[m]
         idx = np.flatnonzero(m)
@@ -104,8 +105,15 @@ def sliding_windows(seq: SeqData, win_size: int = 10000, win_shift: int = 5000,
                     index.append(sel)
                     prev = key
             start += win_shift
-    desp = pd.DataFrame(desp_rows, columns=["chr", "start", "end"])
-    return VariantUnits(desp=desp, index=index)
+    return VariantUnits(desp=_desp(desp_rows, ["chr", "start", "end"]),
+                        index=index)
+
+
+def _desp(rows, names) -> dict:
+    """Unit descriptor tuples -> one numpy column per name."""
+    return {nm: np.asarray([r[i] for r in rows],
+                           dtype=object if i == 0 else np.int64)
+            for i, nm in enumerate(names)}
 
 
 def units_from_groups(seq: SeqData, groups: dict) -> VariantUnits:
@@ -117,8 +125,7 @@ def units_from_groups(seq: SeqData, groups: dict) -> VariantUnits:
                          dtype=np.int64)
         desp_rows.append((name,))
         index.append(sel)
-    return VariantUnits(desp=pd.DataFrame(desp_rows, columns=["set"]),
-                        index=index)
+    return VariantUnits(desp=_desp(desp_rows, ["set"]), index=index)
 
 
 def shard_units(units: VariantUnits, shard: int, n_shards: int
@@ -127,7 +134,7 @@ def shard_units(units: VariantUnits, shard: int, n_shards: int
 
     The multi-host analog of ``seqUnitApply(parallel=)``: each host runs
     an aggregate driver on its slice and the tables are concatenated
-    (``pd.concat`` / ``load_pval([files])``) — per-unit results are
+    (``load_pval([files])``) — per-unit results are
     independent, so shard+merge equals a single-host run.
     """
     if not (0 <= shard < n_shards):
@@ -135,7 +142,8 @@ def shard_units(units: VariantUnits, shard: int, n_shards: int
     U = len(units)
     bounds = np.linspace(0, U, n_shards + 1).astype(int)
     lo, hi = bounds[shard], bounds[shard + 1]
-    return VariantUnits(desp=units.desp.iloc[lo:hi].reset_index(drop=True),
+    return VariantUnits(desp={k: np.asarray(v)[lo:hi]
+                              for k, v in units.desp.items()},
                         index=units.index[lo:hi])
 
 
@@ -407,17 +415,15 @@ class _Kernel:
     def _packed_kernel(self):
         """Lazy packed-model build (one transposed int8 cache per scan)."""
         if self._packed is None:
-            from ..ops.pallas_score import pallas_available
             from ..ops.score_packed import (pack_scan_model,
                                             score_stats_binary_packed,
                                             score_stats_quant_packed)
             pm = pack_scan_model(self.scan_model)
             pk = score_stats_binary_packed if self.binary \
                 else score_stats_quant_packed
-            impl = "pallas2" if pallas_available() else "xla2"
             self._packed = (
-                lambda params, codes, impl=impl: pk(pm, params, codes,
-                                                    impl=impl), impl)
+                lambda params, codes, impl: pk(pm, params, codes,
+                                               impl=impl), "xla2")
         return self._packed
 
     def run(self, G: np.ndarray):
@@ -629,6 +635,13 @@ class _Kernel:
         return out
 
 
+def _unit_columns(units: VariantUnits) -> dict:
+    """A result table's leading columns: the unit descriptors + numvar."""
+    tab = {k: np.asarray(v) for k, v in units.desp.items()}
+    tab["numvar"] = np.asarray([len(i) for i in units.index], np.int64)
+    return tab
+
+
 def _prepare(gdsfile, modobj, config: AggregateConfig):
     model = NullModel.load(modobj)
     seq = gdsfile if isinstance(gdsfile, SeqData) else SeqData(gdsfile)
@@ -651,8 +664,18 @@ def _prepare(gdsfile, modobj, config: AggregateConfig):
 def assoc_burden(gdsfile, modobj, units: VariantUnits,
                  config: AggregateConfig = AggregateConfig(),
                  res_savefn: str = "", verbose: bool = False,
-                 res_compress: str = "LZMA") -> pd.DataFrame:
-    """Burden tests over variant units (seqAssocGLMM_spaBurden).
+                 res_compress: str = "LZMA"):
+    """Burden tests over variant units (seqAssocGLMM_spaBurden); returns a
+    pandas DataFrame."""
+    return _frame(burden_table(gdsfile, modobj, units, config, res_savefn,
+                               verbose, res_compress))
+
+
+def burden_table(gdsfile, modobj, units: VariantUnits,
+                 config: AggregateConfig = AggregateConfig(),
+                 res_savefn: str = "", verbose: bool = False,
+                 res_compress: str = "LZMA") -> dict:
+    """:func:`assoc_burden` returning a dict of numpy columns.
 
     Streams one unit at a time — host memory is bounded by the device
     batch, not by [units x samples]."""
@@ -697,8 +720,7 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
         out[k][~ok] = np.nan
     out["converged"][~ok] = False
 
-    tab = units.desp.copy()
-    tab["numvar"] = [len(i) for i in units.index]
+    tab = _unit_columns(units)
     for key in ("maf_avg", "maf_sd", "maf_min", "maf_max",
                 "mac_avg", "mac_sd", "mac_min", "mac_max"):
         tab[key.replace("_", ".")] = [s[key] for s in summaries]
@@ -712,6 +734,7 @@ def assoc_burden(gdsfile, modobj, units: VariantUnits,
         if binary:
             tab[f"p.norm{s}"] = out["p.norm"][sel]
             tab[f"cvg{s}"] = out["converged"][sel]
+    tab = {k: np.asarray(v) for k, v in tab.items()}
     if res_savefn:
         from .single import save_assoc
         save_assoc(tab, res_savefn, file_format="SAIGE_OUTPUT_SET",
@@ -910,8 +933,18 @@ class _AcatVRunner:
 def assoc_acat_v(gdsfile, modobj, units: VariantUnits,
                  config: AggregateConfig = AggregateConfig(),
                  res_savefn: str = "", verbose: bool = False,
-                 res_compress: str = "LZMA") -> pd.DataFrame:
-    """ACAT-V tests over variant units (seqAssocGLMM_spaACAT_V, binary only)."""
+                 res_compress: str = "LZMA"):
+    """ACAT-V tests over variant units (seqAssocGLMM_spaACAT_V, binary
+    only); returns a pandas DataFrame."""
+    return _frame(acat_v_table(gdsfile, modobj, units, config, res_savefn,
+                               verbose, res_compress))
+
+
+def acat_v_table(gdsfile, modobj, units: VariantUnits,
+                 config: AggregateConfig = AggregateConfig(),
+                 res_savefn: str = "", verbose: bool = False,
+                 res_compress: str = "LZMA") -> dict:
+    """:func:`assoc_acat_v` returning a dict of numpy columns."""
     seq, model, kernel, wbeta, wnames, binary, src = \
         _prepare(gdsfile, modobj, config)
     if not binary:
@@ -924,8 +957,7 @@ def assoc_acat_v(gdsfile, modobj, units: VariantUnits,
             for uid in range(len(units))]
 
     W = len(wbeta)
-    tab = units.desp.copy()
-    tab["numvar"] = [len(i) for i in units.index]
+    tab = _unit_columns(units)
     for key in ("maf_avg", "maf_sd", "maf_min", "maf_max",
                 "mac_avg", "mac_sd", "mac_min", "mac_max"):
         tab[key.replace("_", ".")] = [r[0][key] for r in rows]
@@ -937,6 +969,7 @@ def assoc_acat_v(gdsfile, modobj, units: VariantUnits,
         tab[f"p.med{s}"] = [r[2][w] for r in rows]
         tab[f"p.min{s}"] = [r[3][w] for r in rows]
         tab[f"p.max{s}"] = [r[4][w] for r in rows]
+    tab = {k: np.asarray(v) for k, v in tab.items()}
     if res_savefn:
         from .single import save_assoc
         save_assoc(tab, res_savefn, file_format="SAIGE_OUTPUT_SET",
@@ -947,9 +980,19 @@ def assoc_acat_v(gdsfile, modobj, units: VariantUnits,
 def assoc_acat_o(gdsfile, modobj, units: VariantUnits,
                  config: AggregateConfig = AggregateConfig(),
                  res_savefn: str = "", verbose: bool = False,
-                 res_compress: str = "LZMA") -> pd.DataFrame:
+                 res_compress: str = "LZMA"):
     """ACAT-O tests (seqAssocGLMM_spaACAT_O, binary only): Cauchy combination
-    of the burden and ACAT-V p-values across weight schemes."""
+    of the burden and ACAT-V p-values across weight schemes; returns a
+    pandas DataFrame."""
+    return _frame(acat_o_table(gdsfile, modobj, units, config, res_savefn,
+                               verbose, res_compress))
+
+
+def acat_o_table(gdsfile, modobj, units: VariantUnits,
+                 config: AggregateConfig = AggregateConfig(),
+                 res_savefn: str = "", verbose: bool = False,
+                 res_compress: str = "LZMA") -> dict:
+    """:func:`assoc_acat_o` returning a dict of numpy columns."""
     seq, model, kernel, wbeta, wnames, binary, src = \
         _prepare(gdsfile, modobj, config)
     if not binary:
@@ -967,8 +1010,7 @@ def assoc_acat_o(gdsfile, modobj, units: VariantUnits,
             else np.nan
         rows.append((runner.summaries[uid], combined, pb, pv))
 
-    tab = units.desp.copy()
-    tab["numvar"] = [len(i) for i in units.index]
+    tab = _unit_columns(units)
     for key in ("maf_avg", "maf_sd", "maf_min", "maf_max",
                 "mac_avg", "mac_sd", "mac_min", "mac_max"):
         tab[key.replace("_", ".")] = [r[0][key] for r in rows]
@@ -976,6 +1018,7 @@ def assoc_acat_o(gdsfile, modobj, units: VariantUnits,
     for w, nm in enumerate(wnames):
         tab[f"pval.b{nm}"] = [r[2][w] for r in rows]
         tab[f"pval.v{nm}"] = [r[3][w] for r in rows]
+    tab = {k: np.asarray(v) for k, v in tab.items()}
     if res_savefn:
         from .single import save_assoc
         save_assoc(tab, res_savefn, file_format="SAIGE_OUTPUT_SET",

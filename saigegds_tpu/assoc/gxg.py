@@ -15,7 +15,6 @@ import dataclasses
 from typing import Optional, Union
 
 import numpy as np
-import pandas as pd
 import jax.numpy as jnp
 
 from ..config import NullModelConfig
@@ -215,6 +214,8 @@ def _gxg_run_batched(grm, ori_X, y, pairs, fetch, tau_init, use_approx_tau,
     strictly per-pair).  With ``use_approx_tau`` / the GLM screen the
     arithmetic is identical to the serial path; full per-pair refits use
     the vmapped device fitter (tau within the 2% stopping rule)."""
+    import pandas as pd
+
     rows = []
     for c0 in range(0, len(pairs), pair_batch):
         chunk = pairs[c0:c0 + pair_batch]
@@ -305,7 +306,10 @@ def gxg_spa(formula: str, data: pd.DataFrame, gds_grm, snp_pair,
     or the GLM screen; full per-pair refits then use the vmapped device
     fitter (tau within the AI-REML stopping tolerance of the host's).
     """
-    from ..models.fitnull import _parse_formula, _model_matrix, _term_vars
+    import pandas as pd
+
+    from ..models.fitnull import (_complete_rows, _model_matrix,
+                                  _parse_formula, _take_rows, _term_vars)
 
     if config.trait_type != "binary":
         raise NotImplementedError(
@@ -321,13 +325,14 @@ def gxg_spa(formula: str, data: pd.DataFrame, gds_grm, snp_pair,
         gds_assoc if isinstance(gds_assoc, SeqData) else SeqData(gds_assoc))
     resp, covs = _parse_formula(formula)
 
-    data = data[[cfg.sample_col] + [resp] + _term_vars(covs)].dropna()
-    sid = pd.Index(data[cfg.sample_col].astype(str))
+    data = _complete_rows(data, [cfg.sample_col] + [resp]
+                          + _term_vars(covs))
+    sid = np.asarray(data[cfg.sample_col]).astype(str)
     order = {s: i for i, s in enumerate(sid)}
     keep = [order[s] for s in seq.sample_id.astype(str) if s in order]
-    data = data.iloc[keep].reset_index(drop=True)
+    data = _take_rows(data, np.asarray(keep, np.int64))
     samp_mask = np.isin(seq.sample_id.astype(str),
-                        data[cfg.sample_col].astype(str).to_numpy())
+                        np.asarray(data[cfg.sample_col]).astype(str))
 
     # GRM SNP load + filters (same as the null fit)
     codes = _genotype_codes(seq)[:, samp_mask]
@@ -354,7 +359,8 @@ def gxg_spa(formula: str, data: pd.DataFrame, gds_grm, snp_pair,
         codes = codes[sel]
     impl = cfg.grm_impl
     if impl == "auto":    # same residency rule as fit_null_glmm
-        impl = "packed2" if 2 * codes.size > (4 << 30) else "packed"
+        from ..models.fitnull import _auto_grm_impl
+        impl = _auto_grm_impl(*codes.shape)
     if impl == "packed":
         from ..ops.packed_grm import build_packed_grm
         grm = build_packed_grm(codes)
@@ -364,13 +370,13 @@ def gxg_spa(formula: str, data: pd.DataFrame, gds_grm, snp_pair,
     else:
         grm = build_grm(codes)
 
-    y = data[resp].to_numpy(np.float64)
+    y = np.asarray(data[resp], np.float64)
     ori_X, _ = _model_matrix(data, covs)
 
     # sample index into the assoc data
     a_order = {s: i for i, s in enumerate(seq_assoc.sample_id.astype(str))}
     i_geno = np.asarray([a_order[s] for s in
-                         data[cfg.sample_col].astype(str)])
+                         np.asarray(data[cfg.sample_col]).astype(str)])
     vid_pos = {v: i for i, v in enumerate(seq_assoc.variant_id)}
 
     # initial tau (optionally pre-fitted once)

@@ -44,13 +44,15 @@ class NullModelConfig:
     # The reference's geno.sparse flag picks its sparse index-list vs dense
     # 2-bit store (R/saige_main.r:399-420); here grm_impl covers that axis:
     # "packed" (bf16-exact integer codes + sparse missing corrections)
-    # subsumes both layouts on TPU; "packed2" keeps the genotypes 2-bit
-    # planar-packed in HBM (0.25 B/genotype, the reference's footprint)
-    # with on-device decode — same exact integer-slice matvec.
+    # subsumes both layouts; "packed2" keeps the genotypes 2-bit
+    # planar-packed on device (0.25 B/genotype, the reference's
+    # footprint) with on-device decode — same exact integer-slice matvec.
     grm_impl: str = "auto"        # "auto" = packed, or packed2 when the
-                                  # bf16 store would top ~4 GB HBM |
-                                  # "dense" f64 G_std | "packed" bf16 MXU
-                                  # | "packed2" 2-bit HBM-resident
+                                  # bf16 store would top a quarter of
+                                  # device memory | "dense" f64 G_std |
+                                  # "packed" bf16 codes | "packed2" 2-bit
+                                  # | "packed2_split" 2-bit, one program
+                                  # per leaf group (models/fit_split.py)
     stream_geno: object = "auto"  # out-of-core streamed GRM ingestion
                                   # (packed/packed2 only; host holds one
                                   # block).  True | False | "auto" (stream
@@ -69,7 +71,8 @@ class ScanConfig:
     dsnode: str = ""              # "" = auto-detect genotype vs DS
     use_packed: bool = True       # integer-code fast path for genotype nodes
     packed_2bit: bool = True      # ship scan blocks 2-bit planar-packed
-                                  # (0.25 B/genotype host->device + HBM;
+                                  # (0.25 B/genotype host->device and on
+                                  # device;
                                   # decode on device; bit-parity with int8)
     packed_sparse: bool = True    # ALLOW shipping rare rows (nnz < N/8)
                                   # gap-coded (2 B/nonzero; the reference's
@@ -81,19 +84,13 @@ class ScanConfig:
                                   # (assoc.single.TransportPolicy)
     transport_policy: str = "auto"  # "auto": the link-aware engagement
                                   # above; "static": the nnz-only rule
-                                  # (engage sparse purely on rarity,
-                                  # the pre-round-5 behavior — for
+                                  # (engage sparse purely on rarity — for
                                   # benches/tests of the tier machinery)
     spa_compact: bool = True      # gather nonzero lanes before the SPA
                                   # CGF loops (exact; big win for rare vars)
     spa_mixed: bool = False       # DEPRECATED: f32+polish SPA root-finding
                                   # (~1e-4 agreement instead of bit-parity).
-                                  # Measured SLOWER than exact end-to-end in
-                                  # rounds 4 and 5 (BENCH_r05: 145 vs 175
-                                  # v/s) — phase-2 compute stopped being a
-                                  # binding resource once nnz compaction and
-                                  # stacked readbacks landed.  Kept for
-                                  # compatibility; may be removed.
+                                  # Kept for compatibility; may be removed.
     block_size: int = 1024        # variants per device batch
 
 

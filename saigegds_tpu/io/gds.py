@@ -5,7 +5,7 @@ the CoreArray container behind the gdsfmt + SeqArray R packages): genotype
 inputs (`R/saige_main.r:263`, `R/assoc_single.r:69-85`) and association output
 files all live in this format.  This module implements a from-scratch binary
 reader for the subset of CoreArray needed by SeqArray genotype files, so the
-TPU framework can ingest the same files with zero R dependency.
+package can ingest the same files with zero R dependency.
 
 Format notes (reverse-engineered from the container layout):
 

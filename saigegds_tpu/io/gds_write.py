@@ -254,9 +254,10 @@ def write_gds_table(path: str, columns: Dict[str, np.ndarray],
 
 def save_assoc_gds(df, path: str, file_format: str = "SAIGE_OUTPUT",
                    compress: str = "LZMA"):
-    """Save an association result DataFrame as a SAIGE_OUTPUT GDS
-    (LZMA_ra-compressed by default, like the reference)."""
-    cols = {k: df[k].to_numpy() for k in df.columns}
+    """Save association results (a DataFrame or a dict of numpy columns)
+    as a SAIGE_OUTPUT GDS (LZMA_ra-compressed by default, like the
+    reference)."""
+    cols = {k: np.asarray(df[k]) for k in df.keys()}
     write_gds_table(path, cols, file_format=file_format, compress=compress)
 
 

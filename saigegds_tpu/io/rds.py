@@ -4,7 +4,7 @@ The reference package stores its null-model checkpoints and golden test
 fixtures as ``.rds`` files (reference: ``R/saige_main.r:630-643`` saves the
 fitted ``ClassSAIGE_NullModel``; ``inst/unitTests/*.rds`` hold the regression
 fixtures).  This module decodes R's XDR serialization (versions 2 and 3) into
-plain Python objects so the TPU framework can (a) load reference fixtures for
+plain Python objects so this package can (a) load reference fixtures for
 golden tests and (b) read/write model files interchangeably with R users.
 
 Decoded mapping:

@@ -51,7 +51,7 @@ class DeviceFit(NamedTuple):
 
 
 def _sym_inv(m):
-    # Cholesky + triangular solve: TPU f64 has no LU (jnp.linalg.inv path)
+    # Cholesky + triangular solve, like the reference (saige_fitnull.cpp:721)
     c = jnp.linalg.cholesky((m + m.T) / 2.0)
     ic = jax.scipy.linalg.solve_triangular(
         c, jnp.eye(m.shape[0], dtype=m.dtype), lower=True)
@@ -102,8 +102,8 @@ def fit_glmm_binary_device(op, y, X, tau_init, eta_init, U,
 
     ``pcg``: "exact" = the f64 batched solver (default); "mixed" = the
     opt-in f32-state + f64-refinement tier (ops/pcg.pcg_solve_mixed) —
-    f64-grade solutions without emulated-f64 elementwise work per
-    iteration; fit agreement with "exact" is ~1e-6 on tau/coefficients
+    f64-grade solutions with f32 elementwise work per iteration; fit
+    agreement with "exact" is ~1e-6 on tau/coefficients
     (the 2%-stopping device-fit semantics, CLAUDE.md invariant 1).
     """
     from ..ops.pcg import pcg_solve_mixed
@@ -308,7 +308,7 @@ def fit_glmm_quant_device(op, y, X, tau_init, U,
                         [APY @ PA0PY, APY @ PAPY]])
         AI = (AI + AI.T) / 2.0
         score = jnp.array([YPA0PY - trace0, YPAPY - trace1])
-        # closed-form 2x2 solve (TPU f64 has no LU for jnp.linalg.solve)
+        # closed-form 2x2 solve
         det = AI[0, 0] * AI[1, 1] - AI[0, 1] * AI[1, 0]
         dtau = jnp.array([
             (AI[1, 1] * score[0] - AI[0, 1] * score[1]) / det,

@@ -1,12 +1,12 @@
 """Null GLMM fitting: penalized IRLS + AI-REML with PCG solves on device.
 
-TPU-native re-build of the reference fit pipeline (R driver
+Device re-build of the reference fit pipeline (R driver
 ``seqFitNullGLMM_SPA`` R/saige_main.r:223-658; C engines
 src/saige_fitnull.cpp:736-1248 and 1255-1474):
 
 * the GRM is never materialised — every ``Sigma^{-1} x`` runs a batched
   Jacobi-PCG (``ops/pcg.py``) whose hot op is the standardized-genotype
-  crossprod on the MXU (``ops/grm.py``);
+  crossprod as device matmuls (``ops/grm.py``, ``ops/packed_grm.py``);
 * the outer AI-REML / IRLS loops stay on the host (latency-tolerant,
   data-dependent control flow), each step dispatching fused device kernels;
 * Hutchinson trace probes and variance-ratio marker order replay R's RNG
@@ -92,6 +92,7 @@ def _pcg(grm, w, tau, B, tol, maxiter):
         X, iters, conv = pcg_solve_op(grm, jnp.asarray(w), jnp.asarray(tau),
                                       jnp.asarray(B), tol, maxiter)
         X = np.asarray(X)
+        telemetry.emit("pcg", iters=np.asarray(iters))
     if not bool(conv.all()):
         print("PCG does not converge (may need to increase 'maxiter').")
     return X
@@ -710,7 +711,7 @@ def calc_var_ratio_multi(grm, codes, fit0s, glmms, noks,
             # fixed kernel shape: marker chunks pad to num_marker columns
             # and ALL P lanes stay in the batch (inactive lanes compute
             # and are discarded) — each distinct (P, B) pair would
-            # otherwise re-trigger a remote-AOT compile, and chunk sizes
+            # otherwise trigger another compile, and chunk sizes
             # vary (first chunk num_marker, escalations 10, drop-outs
             # shrink P)
             B0 = max(cfg.num_marker, len(pending))
@@ -969,25 +970,74 @@ _I_FUNCS = {"log": np.log, "log2": np.log2, "log10": np.log10,
             "exp": np.exp, "sqrt": np.sqrt, "abs": np.abs}
 
 
+# Phenotype tables: a pandas DataFrame or a mapping of column name -> 1-D
+# array.  The helpers below read both without importing pandas.
+
+def _n_rows(data) -> int:
+    return len(data[next(iter(data.keys()))])
+
+
+def _is_numeric(v) -> bool:
+    """Numeric column (a pandas categorical is a factor, whatever its
+    values)."""
+    return not hasattr(v, "cat") and np.asarray(v).dtype.kind in "biuf"
+
+
+def _select(data, cols):
+    if hasattr(data, "iloc"):
+        return data[cols]
+    return {c: np.asarray(data[c]) for c in cols}
+
+
+def _take_rows(data, rows):
+    if hasattr(data, "iloc"):
+        return data.iloc[rows].reset_index(drop=True)
+    return {k: v[rows] for k, v in data.items()}
+
+
+def _complete_rows(data, cols):
+    """The named columns, without the rows that miss any of them (the
+    ``dropna`` of R's model frame)."""
+    ok = np.ones(_n_rows(data), bool)
+    for c in cols:
+        v = np.asarray(data[c])
+        if v.dtype.kind == "f":
+            ok &= ~np.isnan(v)
+        elif v.dtype.kind == "O":
+            ok &= ~np.asarray([_is_missing(x) for x in v], bool)
+    return _take_rows(_select(data, cols), np.flatnonzero(ok))
+
+
+def _is_missing(x) -> bool:
+    """None, NaN, or a value whose truth is undefined (pandas' NA)."""
+    try:
+        return x is None or bool(x != x)
+    except TypeError:
+        return True
+
+
 def _component_cols(data, c):
     """One formula component -> list of (name, float64 column)."""
-    import pandas as pd
     if c.startswith("I(") and c.endswith(")"):
         env = dict(_I_FUNCS)
-        env.update({k: np.asarray(data[k], np.float64) for k in data.columns
-                    if pd.api.types.is_numeric_dtype(data[k])})
+        env.update({k: np.asarray(data[k], np.float64) for k in data.keys()
+                    if _is_numeric(data[k])})
         val = eval(c[2:-1], {"__builtins__": {}}, env)  # noqa: S307
         return [(c, np.asarray(val, np.float64))]
     v = data[c]
-    if not pd.api.types.is_numeric_dtype(v) or str(v.dtype) == "category":
-        dummies = pd.get_dummies(v, prefix=c, drop_first=True)
-        return [(nm, dummies[nm].to_numpy(np.float64))
-                for nm in dummies.columns]
-    return [(c, np.asarray(v, np.float64))]
+    if _is_numeric(v):
+        return [(c, np.asarray(v, np.float64))]
+    # factor: one indicator per level after the first (R's treatment
+    # contrasts); levels sort like R's factor(), or keep a categorical's
+    levels = list(v.cat.categories) if hasattr(v, "cat") \
+        else sorted(set(np.asarray(v).tolist()))
+    vals = np.asarray(v, dtype=object)
+    return [(f"{c}_{lv}", (vals == lv).astype(np.float64))
+            for lv in levels[1:]]
 
 
 def _model_matrix(data, terms):
-    cols = [np.ones(len(data))]
+    cols = [np.ones(_n_rows(data))]
     names = ["(Intercept)"]
     for t in terms:
         comps = [c.strip() for c in _split_top(t, ":")]
@@ -1009,7 +1059,8 @@ def fit_null_glmm(formula: str, data, gdsfile,
     """Fit the null GLMM (the ``seqFitNullGLMM_SPA`` equivalent).
 
     formula: e.g. ``"y ~ x1 + x2"`` over columns of ``data`` (a pandas
-    DataFrame with a sample-id column, reference R/saige_main.r:223).
+    DataFrame, or a mapping of column name -> 1-D array, with a sample-id
+    column, reference R/saige_main.r:223).
 
     ``variant_id``: explicit GRM SNP panel — REPLACES the maf/missing
     filter, exactly like the reference's ``variant.id=`` argument
@@ -1026,11 +1077,11 @@ def fit_null_glmm(formula: str, data, gdsfile,
     tele_obj = tele.__enter__()
     try:
         model = _fit_dispatch(cfg, prep["grm"], prep["codes"],
-                              prep["data"][resp].to_numpy(np.float64),
+                              np.asarray(prep["data"][resp], np.float64),
                               prep["X_new"], prep["X_qrr"], prep["X_names"],
                               prep["x_transform"], prep["variant_id"],
                               prep["sample_id"], prep["n_var"],
-                              len(prep["data"]), verbose)
+                              prep["n_samp"], verbose)
     finally:
         tele.__exit__(None, None, None)
     clear_checkpoint(cfg)   # fit + var-ratio complete: drop resume state
@@ -1038,6 +1089,40 @@ def fit_null_glmm(formula: str, data, gdsfile,
     if model_savefn:
         model.save(model_savefn)
     return model
+
+
+# Device memory a fit assumes on a backend that reports none: XLA's CPU
+# client has no memory_stats().  16 GiB keeps the CPU on the bf16 store up
+# to 4 GiB of codes, the threshold the tests are written against.
+CPU_MEMORY_BUDGET = 16 << 30
+
+
+def _device_memory_budget() -> int:
+    """Bytes one device may hold: ``memory_stats()["bytes_limit"]``, or
+    :data:`CPU_MEMORY_BUDGET` on the CPU."""
+    dev = jax.devices()[0]
+    stats = dev.memory_stats() or {}
+    if "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    if dev.platform == "cpu":
+        return CPU_MEMORY_BUDGET
+    raise RuntimeError(f"{dev.platform} device {dev.device_kind!r} reports "
+                       "no memory_stats()['bytes_limit']; cannot size the "
+                       "GRM store")
+
+
+def _auto_grm_impl(n_variants: int, n_samples: int, mesh=None,
+                   budget: int = 0) -> str:
+    """``grm_impl="auto"``: the bf16 code store (2 B/genotype, the fastest
+    matvec) while it fits in a quarter of device memory, else the 2-bit
+    planar store (0.25 B/genotype, the reference's footprint).  A quarter
+    leaves room for the PCG state, the probe pool and the decode
+    transients.  A mesh shards the bf16 store over its devices
+    (ShardedGrmHandle), so per-device memory already divides."""
+    budget = budget or _device_memory_budget()
+    if mesh is not None or 2 * n_variants * n_samples <= budget // 4:
+        return "packed"
+    return "packed2"
 
 
 def _prepare_fit(seq: SeqData, data, cfg, resp_cols, covs, mesh,
@@ -1048,18 +1133,17 @@ def _prepare_fit(seq: SeqData, data, cfg, resp_cols, covs, mesh,
     R/saige_main.r:303-420).  ``resp_cols`` may hold several responses
     (PheWAS-mode `fit_null_glmm_multi`): alignment then keeps samples
     complete in ALL of them."""
-    import pandas as pd
-
     # sample alignment (R/saige_main.r:303-313)
-    data = data[[cfg.sample_col] + resp_cols + _term_vars(covs)].dropna()
-    sid = pd.Index(data[cfg.sample_col].astype(str))
+    data = _complete_rows(data, [cfg.sample_col] + resp_cols
+                          + _term_vars(covs))
+    sid = np.asarray(data[cfg.sample_col]).astype(str)
     order = {s: i for i, s in enumerate(sid)}
     keep = [order[s] for s in seq.sample_id.astype(str) if s in order]
-    data = data.iloc[keep].reset_index(drop=True)
-    if len(data) == 0:
+    if not keep:
         raise ValueError("No common sample.id between 'data' and the GDS file.")
+    data = _take_rows(data, np.asarray(keep, np.int64))
     samp_mask = np.isin(seq.sample_id.astype(str),
-                        data[cfg.sample_col].astype(str).to_numpy())
+                        np.asarray(data[cfg.sample_col]).astype(str))
     sample_id = seq.sample_id[samp_mask]
 
     stream = cfg.stream_geno
@@ -1069,20 +1153,7 @@ def _prepare_fit(seq: SeqData, data, cfg, resp_cols, covs, mesh,
         stream = seq.n_variants * seq.n_samples > 4 << 30
     impl = cfg.grm_impl
     if impl == "auto":
-        # bf16 code residency costs 2 B/genotype in HBM; switch to the
-        # 2-bit planar store (0.25 B, the reference's footprint) past
-        # ~4 GB.  The mesh path shards the bf16 store across devices
-        # (ShardedGrmHandle), so per-device HBM already divides by the
-        # mesh size.  Past ~3 GB of 2-bit store the one-dispatch solve
-        # programs exceed the remote-AOT compile ceiling mapped in
-        # BENCH_NOTES (round 4: dies above ~M=32Ki x N=430K): wrap the
-        # store in the bounded-program SplitPacked2 handle so every
-        # compiled program stays one leaf group (round 5).
-        impl = "packed"
-        if mesh is None and 2 * seq.n_variants * len(data) > (4 << 30):
-            impl = "packed2"
-            if seq.n_variants * (len(data) // 4) > (3 << 30):
-                impl = "packed2_split"
+        impl = _auto_grm_impl(seq.n_variants, len(keep), mesh)
     if mesh is not None and impl not in ("dense", "packed"):
         # fail BEFORE the (potentially hours-long) GRM build: the sharded
         # handle only wraps the dense/bf16 operators
@@ -1299,7 +1370,7 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
 
     ys, fit0s, noks, etas, tau0s = [], [], [], [], []
     for r in resps:
-        y_raw = prep["data"][r].to_numpy(np.float64)
+        y_raw = np.asarray(prep["data"][r], np.float64)
         if binary:
             if set(np.unique(y_raw)) - {0.0, 1.0}:
                 raise ValueError(f"binary trait {r!r} must be coded 0/1")
@@ -1340,8 +1411,8 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
 
     from ..ops.packed_grm import SplitPacked2
     if isinstance(prep["grm"], SplitPacked2):
-        # the batched one-dispatch program needs a pytree operator; past
-        # the compile ceiling (grm_impl="packed2_split") run the split
+        # the batched one-dispatch program needs a pytree operator; with
+        # grm_impl="packed2_split" run the split
         # fitters per phenotype over the shared resident store — the GRM
         # never re-ingests, which is still the PheWAS win the reference
         # lacks (it re-streams its GRM per phenotype)
@@ -1422,7 +1493,7 @@ def fit_null_glmm_multi(formulas, data, gdsfile,
         model = _assemble_model(cfg, glmms[p], vrs[p], noks[p],
                                 prep["X_qrr"], prep["X_names"],
                                 prep["x_transform"], prep["variant_id"],
-                                prep["sample_id"], len(prep["data"]))
+                                prep["sample_id"], prep["n_samp"])
         if model_savefn:
             model.save(model_savefn.format(p))
         models.append(model)
@@ -1523,7 +1594,7 @@ def _genotype_codes(seq: SeqData) -> np.ndarray:
     A DS (imputed-dosage) source is ROUNDED to hard codes — the reference
     fits its GRM only from integer genotype nodes, so this extension
     changes data semantics; a one-time warning reports the largest
-    rounding delta (VERDICT round 3 weak #6)."""
+    rounding delta."""
     if seq.has_genotype():
         from ..io.gds import read_bit2_dosage
         return read_bit2_dosage(seq.gds.root["genotype/data"])

@@ -3,7 +3,7 @@
 ``NullModel`` mirrors the reference's ``ClassSAIGE_NullModel`` S3 object
 (``R/saige_main.r:616-628``) so models are interchangeable: we can load a
 model fitted by the R package from ``.rds`` and vice versa (ours saves to
-``.npz``/``.json``).  ``fit_null_glmm`` is the TPU-native fitting entry
+``.npz``/``.json``).  ``fit_null_glmm`` is the device fitting entry
 point (see ``fitnull.py``).
 """
 

@@ -1,7 +1,7 @@
 // Native decode kernels for the GDS data plane.
 //
 // The reference's data plane is C++ throughout (gdsfmt's CoreArray plus the
-// SIMD helpers in src/vectorization.cpp); this library is the TPU-framework
+// SIMD helpers in src/vectorization.cpp); this library is this package's
 // equivalent for the host-side ingestion path: branch-free 2-bit genotype
 // unpacking, LEB128 string-offset scanning, and ploidy folding, exposed via
 // a plain C ABI for ctypes (no Python.h dependency).

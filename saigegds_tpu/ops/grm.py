@@ -1,11 +1,10 @@
 """Matrix-free GRM operator: v -> G_std' (G_std v) / M on device.
 
-TPU-native equivalent of the reference's TBB-parallel crossprod hot loop
+Device equivalent of the reference's TBB-parallel crossprod hot loop
 (``get_crossprod_b_grm``, src/saige_fitnull.cpp:432-536).  The reference
 decodes 2-bit genotypes through a 4-value standardization lookup per
 variant; here the standardized matrix is materialised (or streamed in
-variant blocks) so the product becomes two large matmuls — the MXU-friendly
-formulation.  Multi-chip: samples are sharded across the mesh and the
+variant blocks) so the product becomes two large matmuls.  Multi-chip: samples are sharded across the mesh and the
 M-partials reduced with ``psum`` (see ``parallel/mesh.py``).
 
 Standardization (src/saige_fitnull.cpp:182-202): per variant with allele

@@ -1,18 +1,17 @@
 """Batched single-variant score tests (binary + quantitative traits).
 
-TPU-native re-design of the reference's per-variant scalar loops
+Device re-design of the reference's per-variant scalar loops
 (``single_test_bin`` / ``single_test_quant``, ``src/saige_main.cpp:189-407``):
 a whole block of B variants is tested at once.  The covariate projections
 ``coeff = XV @ g`` and ``g_tilde = g - XXVX_inv' @ coeff`` become ``[B, N] x
-[N, K]`` matmuls (MXU-friendly), the score/variance contractions are fused
-VPU reductions.  The reference's sparse (maf < 0.05) path is an arithmetic
+[N, K]`` matmuls, the score/variance contractions are fused reductions.  The reference's sparse (maf < 0.05) path is an arithmetic
 re-association of the same quantities, so a single dense path reproduces
 both to fp64 rounding.
 
 SPA refinement is *two-phase*: the main kernel only flags variants with
 ``p_noadj <= spa.pval`` (~5% under the null); flagged variants are gathered
 into compact batches and refined by ``spa_refine_binary``.  This keeps the
-divergent Newton iteration off the hot streaming path — the TPU analog of
+divergent Newton iteration off the hot streaming path — the device analog of
 the reference's "only escalate to SPA when needed" control flow
 (src/saige_main.cpp:355-395).
 
@@ -131,7 +130,7 @@ def _valid_mask(params, num, maf, mac, miss):
 
 
 def _adjusted_genotype(model: ScanModel, g):
-    """coeff = XV @ g; g_tilde = g - XXVX_inv @ coeff (dense MXU path)."""
+    """coeff = XV @ g; g_tilde = g - XXVX_inv @ coeff (dense f64 path)."""
     coeff = g @ model.XV.T                     # [B, K]
     g_tilde = g - coeff @ model.XXVX_inv.T     # [B, N]
     return g_tilde
@@ -162,8 +161,7 @@ def unpack_codes_2bit_f64(packed, n_samples: int):
     uint8 [B, N4] planar bytes -> f64 [B, n] dosages with NaN missing.
 
     Phase-2 SPA batches ship 2-bit packed (N/4 bytes per variant instead
-    of 8N for dense f64 — at biobank N the host->device transfer is the
-    scan's binding resource, see BENCH_NOTES.md rooflines)."""
+    of 8N for dense f64, to cut the host->device bytes)."""
     pi = packed.astype(jnp.int32)
     planes = jnp.concatenate([(pi >> (2 * p)) & 3 for p in range(4)],
                              axis=1)[:, :n_samples]
@@ -183,9 +181,9 @@ def spa_refine_binary(model: ScanModel, G, mixed: bool = False,
     Mirrors src/saige_main.cpp:355-400.
     """
     if packed_n and isinstance(G, tuple):
-        from .sparse_codes import decode_codes_auto
+        from .sparse_codes import decode_codes
         entries, row_ptr = G
-        codes = decode_codes_auto(entries, row_ptr, row_ptr.shape[0] - 1,
+        codes = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1,
                              packed_n)
         G = jnp.where(codes == 3, jnp.nan, codes.astype(jnp.float64))
     elif packed_n:
@@ -208,7 +206,7 @@ def spa_refine_binary(model: ScanModel, G, mixed: bool = False,
     v2_ = jnp.where(live, var2, 1.0)
     gn_ = jnp.where(live[:, None], g_norm, 0.0)
     if cap and cap < G.shape[1]:
-        # rare-variant compaction (the TPU analog of Saddle_Prob_Fast's
+        # rare-variant compaction (the device analog of Saddle_Prob_Fast's
         # nonzero-index gather, src/SPATest.cpp:299-374): the CGF loops run
         # over the top-`cap` nonzero lanes only.  Exact when cap >= max nnz
         # of the batch (the caller buckets cap accordingly); lanes beyond

@@ -1,10 +1,10 @@
-"""Exact packed-genotype score test: integer MXU matmuls, f64 statistics.
+"""Exact packed-genotype score test: integer-sliced bf16 matmuls, f64 statistics.
 
 The dense f64 score kernel (``ops/score.py``) materializes several [B, N]
 float64 intermediates per block (imputed dosages, flips, the adjusted
-genotype) — on TPU that is both the memory and the (emulated-f64) compute
-bottleneck.  This module reformulates phase 1 **algebraically** so the raw
-int8 genotype codes are the only [B, N]-sized operand:
+genotype): 8 B per genotype of device-memory traffic each.  This module
+reformulates phase 1 **algebraically** so the raw int8 genotype codes are
+the only [B, N]-sized operand:
 
 With per-variant missing mask ``m``, zero-filled dosages ``g0`` and
 hom-ALT indicator ``g2`` (all exact small integers derived from the codes),
@@ -20,8 +20,8 @@ and the covariate adjustment ``L(v) = v - XXVX_inv (XV v)`` is linear, so
 i.e. phase 1 for a whole block is ONE exact integer matmul
 ``[G0; M; G2] @ V'`` where ``V`` stacks the 2K+3 model vectors
 (ones, r, W, XV rows, (W XXVX_inv) rows), decomposed into signed-7-bit
-slices exactly as in ``ops/packed_grm.py`` — bf16 MXU throughput, float64
-results, bit-parity with the dense kernel.
+slices exactly as in ``ops/packed_grm.py`` — bf16 tensor-core matmuls,
+float64 results, bit-parity with the dense kernel.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class PackedScanModel(NamedTuple):
     sum_w: jnp.ndarray     # [] W' 1
     var_ratio: float
     n_cov: int             # K
-    vs: jnp.ndarray        # [N, Cpad] bf16 sliced V (Pallas kernel operand)
+    vs: jnp.ndarray        # [N, Cpad] bf16 sliced V (int8-block operand)
     vs4: jnp.ndarray       # [4, N4, Cpad] plane-split zero-padded vs for the
     #                        2-bit planar-packed block path (plane p rows are
     #                        natural samples p*N4 .. p*N4+N4-1).  Both vs and
@@ -92,7 +92,7 @@ def pack_scan_model(model: ScanModel) -> PackedScanModel:
         XV,                               # rows 3 .. 3+K-1
         WX.T,                             # rows 3+K .. 3+2K-1
     ], axis=0)                            # [2K+3, N]
-    # bake the signed-7-bit slice decomposition for the Pallas kernel:
+    # bake the signed-7-bit slice decomposition of the model vectors:
     # V' ~ scale * sum_s d_s / (64 * 128^s)   (ops/packed_grm._slice_i8)
     d, scale = _slice_i8(jnp.asarray(V.T), N_SLICES)      # [N, R, S], [R]
     R = V.shape[0]
@@ -147,9 +147,9 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, codes,
     contraction — bit-parity with the dense paths by construction.
     """
     if impl == "sparse":
-        from .sparse_codes import decode_codes_auto
+        from .sparse_codes import decode_codes
         entries, row_ptr = codes
-        codes = decode_codes_auto(entries, row_ptr, row_ptr.shape[0] - 1,
+        codes = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1,
                              pm.V.shape[1])
         impl = "xla"
     B = codes.shape[0]
@@ -157,14 +157,7 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, codes,
     K = (pm.V.shape[0] - 3) // 2    # static (from array shape, not the leaf)
     R = pm.V.shape[0]
 
-    if impl == "pallas" or impl == "pallas_interpret":
-        from .pallas_score import indicator_dot
-        Y3 = indicator_dot(codes, pm.vs,
-                           interpret=(impl == "pallas_interpret"))
-        Y3 = Y3[:, :, :R * N_SLICES].reshape(B, 3, R, N_SLICES)
-        Y3 = jnp.einsum("bgrs,rs->bgr", Y3, pm.wts)    # [B, 3, R]
-        Y0, Ym, Y2 = Y3[:, 0], Y3[:, 1], Y3[:, 2]
-    elif impl == "xla":
+    if impl == "xla":
         # chunk the contraction axis (exact-f32 bound, see packed_grm) and
         # build the bf16 indicators chunk-locally: no full-width [B, N]
         # bf16 materializations and no strided column slices of them
@@ -205,13 +198,6 @@ def _packed_phase1(pm: PackedScanModel, params: ScanParams, codes,
                     part = part.astype(jnp.float64)
                     acc[i] = part if acc[i] is None else acc[i] + part
         Y0, Ym, Y2 = (_combine_slices(a, B, R, pm.wts) for a in acc)
-    elif impl == "pallas2" or impl == "pallas2_interpret":
-        from .pallas_score import indicator_dot_2bit
-        Y3 = indicator_dot_2bit(codes, pm.vs4,
-                                interpret=(impl == "pallas2_interpret"))
-        Y3 = Y3[:, :, :R * N_SLICES].reshape(B, 3, R, N_SLICES)
-        Y3 = jnp.einsum("bgrs,rs->bgr", Y3, pm.wts)
-        Y0, Ym, Y2 = Y3[:, 0], Y3[:, 1], Y3[:, 2]
     else:
         raise ValueError(f"unknown impl {impl!r}")
 
@@ -264,9 +250,8 @@ def score_stats_binary_packed(pm: PackedScanModel, params: ScanParams, codes,
     """Phase-1 binary score test from int8 codes [B, N] (3 = missing).
 
     Bit-parity with ``score_stats_binary`` on integer-dosage data, at
-    integer-matmul cost.  ``impl="pallas"`` fuses the indicator decode into
-    the contraction kernel (one HBM pass over the 1-byte codes);
-    ``"xla"`` is the portable formulation.
+    integer-matmul cost.  ``impl``: ``"xla"`` for int8 codes, ``"xla2"``
+    for 2-bit planar blocks, ``"sparse"`` for the gap-coded stream.
     """
     m = _packed_phase1(pm, params, codes, impl)
     S, var, flip = m["S"], m["var"], m["flip"]
@@ -322,7 +307,7 @@ def _burden_rows(codes, A, Bm, C):
     /root/reference/src/saige_main.cpp:526-610).
 
     The f64 coefficients decompose into signed-7-bit slices
-    (ops/packed_grm._slice_i8) so every MXU matmul accumulates exact
+    (ops/packed_grm._slice_i8) so every bf16 matmul accumulates exact
     integers (|d| <= 64, |g| <= 2, S <= 65536 => partials < 2^24);
     sample columns are chunked to bound the transient bf16 indicators.
     """
@@ -374,9 +359,9 @@ def burden_score_packed(model: ScanModel, params: ScanParams, payload,
     """
     N = model.XV.shape[1]
     if isinstance(payload, tuple):
-        from .sparse_codes import decode_codes_auto
+        from .sparse_codes import decode_codes
         entries, row_ptr = payload
-        codes = decode_codes_auto(entries, row_ptr, row_ptr.shape[0] - 1, N)
+        codes = decode_codes(entries, row_ptr, row_ptr.shape[0] - 1, N)
     elif payload.shape[1] != N:                    # 2-bit planar
         pi = payload.astype(jnp.int32)
         planes = jnp.concatenate([(pi >> (2 * p)) & 3 for p in range(4)],

@@ -1,9 +1,9 @@
 """Saddlepoint approximation (SPA) of score-statistic p-values, batched.
 
-TPU-native reimplementation of the reference's CGF machinery
+Device reimplementation of the reference's CGF machinery
 (``src/SPATest.cpp:42-374``, itself derived from the SPAtest R package /
 Dey et al. 2017).  Everything is vectorized over a block of variants: the
-CGF sums run as masked ``[B, N]`` reductions on the VPU and the Newton
+CGF sums run as masked ``[B, N]`` reductions and the Newton
 root-finding runs as a ``lax.while_loop`` with per-variant lane state, so a
 whole variant block is processed in a single fused XLA computation instead
 of the reference's per-variant scalar loops.
@@ -145,8 +145,9 @@ def _getroot_K1(q, g, mu, mask, NAmu, NAsigma, g_pos, g_neg, skip=None):
 def _getroot_mixed(q, g, mu, mask, NAmu, NAsigma, g_pos, g_neg):
     """f32 Newton loop + f64 escalation for failed lanes.
 
-    On TPU float64 is software-emulated, and the root loop evaluates the
-    CGF over [B, N] every iteration.  The damped Newton iteration runs in
+    The root loop evaluates the CGF over [B, N] every iteration; on a
+    device whose f64 rate is far below its f32 rate, the damped Newton
+    iteration runs in
     float32 (the reference's tolerance eps^0.25 ~ 1.2e-4 is far above f32
     precision); lanes that fail in f32 (overflow at extreme roots) rerun
     in the exact f64 loop.  No polish step is needed: the saddlepoint
@@ -174,7 +175,7 @@ def _saddle_prob(t, g, mu, mask, NAmu, NAsigma, q, f32_terms=False):
     """|one-sided saddlepoint tail probability| for root t (0 if invalid).
 
     ``f32_terms`` evaluates the elementwise [B, N] CGF terms in float32
-    (the emulated-f64 exp/log passes dominate the cost on TPU); the tail
+    (the f64 exp/log passes dominate the cost where f64 is slow); the tail
     algebra stays f64.  Term error ~1e-6 relative reaches the p-value at
     ~1e-5 — used by the mixed mode, whose callers fall back to the exact
     evaluation for any lane this zeroes out."""
@@ -211,7 +212,7 @@ def saddle_prob_batch(q, m1, var2, g, mu, mask, cutoff=2.0, mixed=False,
     mixed : False replays the reference's f64 Newton iteration bit-for-bit
         (golden parity).  True runs the Newton loop in f32 and the tail CGF
         terms in f32 with an exact f64 re-run of any lane the f32 terms
-        zero out — several times faster where f64 is emulated (TPU).  No
+        zero out — for devices where f64 is much slower than f32.  No
         polish is needed: the saddlepoint objective tq - K(t) is stationary
         at the root, so the f32 root error (~1.2e-4) perturbs p only at
         second order (~1e-4/w^2); measured ~2e-6 off exact on the fixtures.

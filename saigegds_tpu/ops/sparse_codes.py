@@ -1,11 +1,10 @@
 """Sparse genotype-code transport: gap-coded uint16 entries + device decode.
 
-The TPU analog of the reference's sparse genotype store (index lists per
-variant, ``saige_store_sp_geno`` /root/reference/src/saige_fitnull.cpp:236-427)
-and of its sparse score-test path (maf<0.05 variants touch only their
-nonzero samples, src/saige_main.cpp:299-350).  On this stack the binding
-resource of a biobank-scale scan is the host->device byte stream (see
-BENCH_NOTES.md), so the win is re-cast as a *transport* format:
+The device analog of the reference's sparse genotype store (index lists
+per variant, ``saige_store_sp_geno`` src/saige_fitnull.cpp:236-427) and of
+its sparse score-test path (maf<0.05 variants touch only their nonzero
+samples, src/saige_main.cpp:299-350), re-cast as a *transport* format that
+cuts the host->device bytes of rare-variant blocks:
 
 - every nonzero code (1, 2, or 3=missing) is ONE uint16 entry
   ``(gap << 2) | code`` where ``gap`` = distance-1 to the previous nonzero
@@ -147,6 +146,8 @@ def decode_codes(entries: jnp.ndarray, row_ptr: jnp.ndarray,
     (code 0 / dropped out-of-range rows).
     """
     L = entries.shape[0]
+    if L == 0:                         # an unpadded all-zero block
+        return jnp.zeros((n_rows, n_samples), jnp.int8)
     e = entries.astype(jnp.int32)
     gap = e >> 2
     code = (e & 3).astype(jnp.int8)
@@ -167,43 +168,6 @@ def decode_codes(entries: jnp.ndarray, row_ptr: jnp.ndarray,
     dense = dense.at[flat].set(code, mode="drop",
                                indices_are_sorted=True, unique_indices=True)
     return dense.reshape(n_rows, n_samples)
-
-
-# which implementation decode_codes_auto last baked into a traced program
-# ("xla" | "pallas" | "pallas_interpret") — bench/JSON evidence of what a
-# scan's compiled decode actually is, not a parallel re-derivation
-LAST_DECODE_IMPL: str = ""
-
-
-def decode_codes_auto(entries: jnp.ndarray, row_ptr: jnp.ndarray,
-                      n_rows: int, n_samples: int) -> jnp.ndarray:
-    """Decode via the segmented-cumsum XLA path (the default — carries the
-    measured 1.8x rare-file win, BENCH_NOTES round 3) or, when the
-    EXPERIMENTAL Pallas flag is on and the backend compiles it, the
-    gridless stream kernel (ops/pallas_sparse).  ``SAIGE_SPARSE_DECODE``
-    = auto|xla|pallas|pallas_interpret overrides (pallas = fail loudly if
-    unavailable)."""
-    import os
-    global LAST_DECODE_IMPL
-    impl = os.environ.get("SAIGE_SPARSE_DECODE", "auto")
-    if impl != "xla":
-        from .pallas_sparse import (decode_codes_pallas,
-                                    pallas_decode_available,
-                                    pallas_decode_fits)
-        if impl == "pallas_interpret":
-            LAST_DECODE_IMPL = "pallas_interpret"
-            return decode_codes_pallas(entries, row_ptr, n_rows, n_samples,
-                                       interpret=True)
-        if pallas_decode_fits(n_rows, n_samples):
-            if impl == "pallas" or pallas_decode_available():
-                LAST_DECODE_IMPL = "pallas"
-                return decode_codes_pallas(entries, row_ptr, n_rows,
-                                           n_samples)
-        elif impl == "pallas":
-            raise ValueError(f"block {n_rows}x{n_samples} exceeds the "
-                             "Pallas decode's 2^29 flat-index bound")
-    LAST_DECODE_IMPL = "xla"
-    return decode_codes(entries, row_ptr, n_rows, n_samples)
 
 
 def bucket_rows(n: int, cap: int, minimum: int = 64) -> int:

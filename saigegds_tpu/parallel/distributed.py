@@ -2,12 +2,11 @@
 
 The reference scales across machines by running independent jobs on variant
 ranges and row-binding the result files (``seqSAIGE_LoadPval``,
-R/saige_main.r:205-213).  The TPU-native equivalent keeps that
-embarrassingly-parallel structure for the scan — each host owns a contiguous
-variant range and writes one result shard — while the *fit* shards samples
-across all chips of the pod slice (``ShardedGrmHandle`` + ``psum`` over
-ICI/DCN; initialize with :func:`init_distributed` so every host sees the
-global mesh).
+R/saige_main.r:205-213).  This package keeps that embarrassingly-parallel
+structure for the scan — each host owns a contiguous variant range and
+writes one result shard — while the *fit* shards samples across all
+devices (``ShardedGrmHandle`` + ``psum`` over the interconnect; initialize
+with :func:`init_distributed` so every host sees the global mesh).
 """
 
 from __future__ import annotations
@@ -21,12 +20,12 @@ import numpy as np
 def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None) -> Tuple[int, int]:
-    """Initialize jax.distributed for a multi-host pod slice.
+    """Initialize jax.distributed for a multi-host run.
 
-    On TPU pods a bare ``init_distributed()`` call auto-detects everything
-    from the environment (jax.distributed.initialize with no args); on
-    CPU/GPU clusters pass the arguments explicitly.  Returns (process_id,
-    process_count).  No-op when already initialized.
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id; a bare call works only where a cluster environment
+    JAX recognises provides them.  Returns (process_id, process_count).
+    No-op when already initialized.
     """
     import jax
     from jax._src import distributed as _dist

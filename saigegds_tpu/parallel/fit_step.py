@@ -46,7 +46,7 @@ class FitStepOut(NamedTuple):
 def _sym_inv(m):
     """inv via Cholesky of the symmetrized matrix (src/saige_fitnull.cpp:721).
 
-    Triangular solve instead of jnp.linalg.inv: TPU f64 has no LU."""
+    Triangular solve instead of jnp.linalg.inv, like the reference."""
     ms = (m + m.T) / 2.0
     c = jnp.linalg.cholesky(ms)
     inv_c = jax.scipy.linalg.solve_triangular(

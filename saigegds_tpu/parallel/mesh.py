@@ -2,12 +2,12 @@
 
 The reference scales with shared-memory threads (TBB over variants inside
 one GRM product) and independent per-host jobs merged at the file level
-(SURVEY.md §2.3).  The TPU-native design instead shards:
+(SURVEY.md §2.3).  This package instead shards:
 
 * **samples** for the null fit: the standardized genotype matrix
   ``G_std [M, N]`` is sharded over its sample axis, so every PCG step's
   ``G'(G v)`` computes local partials and XLA inserts the ``psum`` over
-  ICI for the M-vector inner products (the moral equivalent of the
+  the interconnect for the M-vector inner products (the moral equivalent of the
   reference's per-thread accumulator + reduce, src/saige_fitnull.cpp:521-535);
 * **variants** for the scan: dosage blocks are sharded over their batch
   axis with the null-model state replicated — embarrassingly parallel,
@@ -102,7 +102,7 @@ class ShardedGrmHandle:
     ``handle.pcg(...)`` / ``handle.mv(...)`` with original-size numpy
     arrays and gets original-size results back; internally each solve runs
     as one sharded XLA program with a ``psum`` per GRM product over the
-    mesh axis (the TPU equivalent of the reference's per-thread-buffer
+    mesh axis (the device equivalent of the reference's per-thread-buffer
     reduce, src/saige_fitnull.cpp:521-535).
 
     Padding is exact: padded samples carry zero genotype columns, weight 1

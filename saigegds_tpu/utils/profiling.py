@@ -2,9 +2,9 @@
 
 The reference exposes a SIMD-dispatch introspection call (``SIMD()`` ->
 ``saige_simd_version``, R/saige_main.r:64, src/vectorization.cpp:33-94) and
-brackets phases with wall-clock prints (R/saige_main.r:260-261).  The TPU
-equivalents: a device/topology report and JAX profiler traces viewable in
-TensorBoard/XProf.
+brackets phases with wall-clock prints (R/saige_main.r:260-261).  The
+equivalents here: a device/topology report and JAX profiler traces viewable
+in TensorBoard/XProf.
 """
 
 from __future__ import annotations

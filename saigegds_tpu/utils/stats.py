@@ -10,7 +10,6 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import numpy as np
-import pandas as pd
 
 from ..ops.acat import acat_pval, beta_weights
 
@@ -54,14 +53,16 @@ def glmm_heritability(model, adjust: bool = True) -> float:
 
 
 def load_pval(files: Union[str, Sequence[str]], columns=None,
-              index=None) -> pd.DataFrame:
+              index=None):
     """Load and row-bind association result shards (seqSAIGE_LoadPval).
 
     Supports our gds/parquet/tsv/csv outputs and the reference's .rds and
     SAIGE_OUTPUT .gds files.  ``columns`` subsets columns (varnm);
     ``index`` subsets rows of a single file (like the reference, it is
-    rejected for multi-file merges).
+    rejected for multi-file merges).  Returns a pandas DataFrame.
     """
+    import pandas as pd
+
     if index is not None and not isinstance(files, str) and len(files) > 1:
         raise ValueError("'index' should be None for multiple input files")
     if isinstance(files, (str,)):

@@ -1,10 +1,8 @@
 """Bounded-program split fit: SplitPacked2 handle + host-driven PCG +
 fit_glmm_binary_split vs the one-dispatch device fit.
 
-This is the engine that breaks the remote-AOT compile ceiling at
-biobank M (VERDICT r4 #3): the largest compiled program is one leaf
-group, independent of total M, so results must match the monolithic
-paths wherever both run.
+The largest compiled program is one leaf group, independent of total M,
+so results must match the monolithic paths wherever both run.
 """
 
 import jax.numpy as jnp

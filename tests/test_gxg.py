@@ -125,8 +125,8 @@ def test_gxg_batched_full_refit_close(pheno, pair_df):
     """Full per-pair refit: batched (vmapped device fit) tracks the serial
     host refit within the AI-REML stopping tolerance."""
     # dense operator: the vmapped device fit's batched f64 dots run on
-    # every backend (packed bf16 vmap needs TPU; CPU takes the per-pair
-    # fallback, covered implicitly)
+    # every backend (the CPU takes the per-pair fallback for the packed
+    # bf16 operator, covered implicitly)
     cfg = NullModelConfig(trait_type="binary", max_num_snp=2000,
                           grm_impl="dense")
     pairs = pair_df.iloc[:3]
@@ -143,7 +143,7 @@ def test_gxg_batched_full_refit_close(pheno, pair_df):
 
 
 # ---------------------------------------------------------------------------
-# Independent oracles (VERDICT round-1 weak #7): the GxG statistic is pinned
+# Independent oracles: the GxG statistic is pinned
 # against from-scratch dense linear algebra + a scipy-brentq saddlepoint,
 # not just internal consistency.
 

@@ -155,24 +155,3 @@ def test_packed2_streamed_build(problem):
     np.testing.assert_array_equal(
         np.concatenate([np.asarray(lf) for lf in sg.packed]),
         np.concatenate([np.asarray(lf) for lf in p2.packed]))
-
-
-def test_packed2_matvec_pallas_interpret_matches_xla():
-    """The fused-decode Pallas GRM matvec (ops/pallas_grm, interpret mode)
-    reproduces the XLA formulation bit-for-bit (same exact-integer
-    contraction, different tiling)."""
-    import numpy as np
-    from saigegds_tpu.ops.packed_grm import (build_packed2_grm,
-                                             packed2_grm_matvec)
-
-    rng = np.random.default_rng(3)
-    M, N, R = 300, 1111, 3
-    codes = rng.integers(0, 3, size=(M, N)).astype(np.int8)
-    codes[rng.random((M, N)) < 0.02] = 3
-    grm = build_packed2_grm(codes)
-    b = rng.normal(size=(N, R))
-    args = (grm.packed, grm.af, grm.inv, grm.miss_var, grm.miss_samp,
-            grm.miss_pad, grm.samp_mask, b)
-    want = np.asarray(packed2_grm_matvec(*args, impl="xla"))
-    got = np.asarray(packed2_grm_matvec(*args, impl="pallas_interpret"))
-    np.testing.assert_allclose(got, want, rtol=1e-13, atol=1e-15)

@@ -1,8 +1,8 @@
 """Mixed-precision PCG (f32 inner state + exact-f64 refinement).
 
-The opt-in tier for the 2%-stopping device fit (VERDICT r4 #4): at
-biobank N the f64 solver's cost is emulated-f64 elementwise state
-updates, not MXU work.  Solutions must stay f64-grade (the refinement
+The opt-in tier for the 2%-stopping device fit, for devices where f64
+elementwise state updates cost far more than f32 ones.  Solutions must
+stay f64-grade (the refinement
 recombines true residuals with the exact matvec), so the tier is a
 drop-in for ``pcg_solve_op`` wherever bit-replay is not required.
 """

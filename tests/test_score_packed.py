@@ -60,23 +60,6 @@ def test_packed_all_missing_variant(setup):
     assert not bool(np.asarray(got.valid)[2])   # monomorphic -> maf 0
 
 
-def test_pallas_impl_matches_xla(setup):
-    """interpret-mode Pallas kernel == XLA formulation."""
-    seq, sm, pm = setup
-    params = ScanParams(maf=-1.0, mac=4.0, missing=0.1, spa_pval=0.05)
-    G = seq.dosage_block(0, 300)
-    codes = np.where(np.isnan(G), 3, G).astype(np.int8)
-    want = score_stats_binary_packed(pm, params, jnp.asarray(codes))
-    got = score_stats_binary_packed(pm, params, jnp.asarray(codes),
-                                    impl="pallas_interpret")
-    v = np.asarray(want.valid)
-    np.testing.assert_array_equal(np.asarray(got.valid), v)
-    for f in ("beta", "se", "pval"):
-        np.testing.assert_allclose(np.asarray(getattr(got, f))[v],
-                                   np.asarray(getattr(want, f))[v],
-                                   rtol=1e-10, err_msg=f)
-
-
 def test_quant_packed_matches_dense():
     from saigegds_tpu.ops.score import score_stats_quant
     from saigegds_tpu.ops.score_packed import score_stats_quant_packed
@@ -144,7 +127,7 @@ def test_packed_fuzz_parity(setup, seed):
                                    rtol=1e-9, atol=1e-12, err_msg=f)
 
 
-@pytest.mark.parametrize("impl", ["xla2", "pallas2_interpret"])
+@pytest.mark.parametrize("impl", ["xla2"])
 def test_2bit_impl_matches_int8(setup, impl):
     """Planar 2-bit packed blocks reproduce the int8 path exactly
     (same exact-integer contraction; N not divisible by 4 pads)."""

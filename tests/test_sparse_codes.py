@@ -240,75 +240,40 @@ def test_native_encoder_matches_numpy(seed):
 
 
 # ---------------------------------------------------------------------------
-# Pallas stream-decode kernel (ops/pallas_sparse) — interpret mode on CPU;
-# compiled-mode validation happens on the TPU backend (pallas_decode_available)
+# device decode round trips at the stream's edge cases
 
-def _roundtrip_pallas(codes: np.ndarray, pad: bool = False) -> np.ndarray:
-    from saigegds_tpu.ops.pallas_sparse import decode_codes_pallas
+
+def _case_codes(case: str) -> np.ndarray:
+    if case.startswith("fuzz"):
+        rng = np.random.default_rng(int(case[4:]))
+        codes = rng.choice(np.int8([0, 0, 0, 0, 0, 1, 2, 3]), size=(37, 503))
+        codes[5] = 0
+        codes[6] = 3
+        codes[:, -7:] = 0
+    elif case == "escapes":
+        codes = np.zeros((8, 3 * (MAX_GAP + 1) + 10), np.int8)
+        N = codes.shape[1]
+        codes[0, N - 1] = 2               # two escapes then the entry
+        codes[1, 0] = 3                   # first position, missing code
+        codes[2, MAX_GAP] = 1             # exactly max gap, no escape
+        codes[3, MAX_GAP + 1] = 1         # one escape, zero remainder
+        codes[5, [10, 11, 12]] = 2        # adjacent entries
+    elif case == "empty":
+        codes = np.zeros((12, 256), np.int8)
+    else:                                 # "rare": 5% nonzero, one value
+        rng = np.random.default_rng(4)
+        codes = (rng.random((8, 512)) < 0.05).astype(np.int8) * 2
+    return codes
+
+
+@pytest.mark.parametrize("case", ["fuzz0", "fuzz1", "escapes", "empty",
+                                  "rare"])
+@pytest.mark.parametrize("pad", [False, True])
+def test_decode_roundtrip_cases(case, pad):
+    codes = _case_codes(case)
     entries, row_ptr = encode_sparse_rows(codes)
     if pad:
         entries = pad_entries(entries)
-    out = decode_codes_pallas(jnp.asarray(entries), jnp.asarray(row_ptr),
-                              codes.shape[0], codes.shape[1],
-                              interpret=True)
-    return np.asarray(out)
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_pallas_decode_fuzz(seed):
-    rng = np.random.default_rng(seed)
-    B, N = 37, 503                    # odd row count -> TILE_ROWS=1 path
-    codes = rng.choice(np.int8([0, 0, 0, 0, 0, 1, 2, 3]), size=(B, N))
-    codes[5] = 0
-    codes[6] = 3
-    codes[:, -7:] = 0
-    np.testing.assert_array_equal(_roundtrip_pallas(codes, pad=True), codes)
-
-
-def test_pallas_decode_escapes_and_edges():
-    B, N = 8, 3 * (MAX_GAP + 1) + 10  # TILE_ROWS=8, escape entries needed
-    codes = np.zeros((B, N), np.int8)
-    codes[0, N - 1] = 2               # two escapes then the entry
-    codes[1, 0] = 3                   # first position, missing code
-    codes[2, MAX_GAP] = 1             # exactly max gap, no escape
-    codes[3, MAX_GAP + 1] = 1         # one escape, zero remainder
-    codes[5, [10, 11, 12]] = 2        # adjacent entries
-    np.testing.assert_array_equal(_roundtrip_pallas(codes), codes)
-    np.testing.assert_array_equal(_roundtrip_pallas(codes, pad=True), codes)
-
-
-def test_pallas_decode_empty_stream():
-    codes = np.zeros((12, 256), np.int8)
-    np.testing.assert_array_equal(_roundtrip_pallas(codes), codes)
-
-
-def test_pallas_prepass_matches_scatter_positions():
-    """The vectorized prepass (segmented cumsum) and the scatter decoder
-    agree on every flat position, including empty padded rows."""
-    rng = np.random.default_rng(3)
-    B, N = 24, 2048
-    codes = np.zeros((B, N), np.int8)
-    m = rng.random((B, N)) < 0.02
-    codes[m] = rng.integers(1, 4, size=int(m.sum()))
-    codes[[0, 7, 23]] = 0             # empty first / middle / last rows
-    entries, rp = encode_sparse_rows(codes)
-    entries = pad_entries(entries)
-    want = np.asarray(decode_codes(jnp.asarray(entries), jnp.asarray(rp),
-                                   B, N))
-    got = _roundtrip_pallas(codes, pad=True)
-    np.testing.assert_array_equal(got, want)
-
-
-def test_decode_auto_env_override(monkeypatch):
-    from saigegds_tpu.ops.sparse_codes import decode_codes_auto
-    rng = np.random.default_rng(4)
-    codes = (rng.random((8, 512)) < 0.05).astype(np.int8) * 2
-    entries, rp = encode_sparse_rows(codes)
-    monkeypatch.setenv("SAIGE_SPARSE_DECODE", "pallas_interpret")
-    out = np.asarray(decode_codes_auto(jnp.asarray(entries),
-                                       jnp.asarray(rp), 8, 512))
-    np.testing.assert_array_equal(out, codes)
-    monkeypatch.setenv("SAIGE_SPARSE_DECODE", "xla")
-    out = np.asarray(decode_codes_auto(jnp.asarray(entries),
-                                       jnp.asarray(rp), 8, 512))
-    np.testing.assert_array_equal(out, codes)
+    out = decode_codes(jnp.asarray(entries), jnp.asarray(row_ptr),
+                       codes.shape[0], codes.shape[1])
+    np.testing.assert_array_equal(np.asarray(out), codes)

@@ -1,9 +1,8 @@
 """Link-aware sparse-transport engagement (assoc.single.TransportPolicy).
 
-Round-4 finding (VERDICT r4 weak #2): under the three-stage pipeline the
-gap-coded tier LOSES on a healthy link (its device scatter sits on the
-critical path while uploads hide behind decode) but WINS several-fold
-when the link binds.  The policy must therefore engage the tier only
+Under the three-stage pipeline the gap-coded tier can lose on a healthy
+link (its device decode sits on the critical path while uploads hide
+behind decode) and win when the link binds.  The policy must therefore engage the tier only
 when the scan's own measured rates make dense uploads the binder — and
 the default scan must never route sparse on a healthy link.
 """
@@ -98,7 +97,7 @@ def test_packed_parts_policy_gates_tier():
 
 
 def test_prefetch_queue_wait_instrumentation():
-    """The inter-stage wait timers (VERDICT r4 #7) record per item."""
+    """The inter-stage wait timers record per item."""
     import time
 
     def slow_producer():
