@@ -12,10 +12,12 @@ variant scans that follow it run through the command-line entry point
 from ``--seed`` into ``.smoke_data/`` (reused when present).  Each phase
 compares its output with a plain reference and prints one JSON line: wall
 time, achieved bytes/s where it reads a store, its largest error beside the
-limit, and ``peak_bytes_in_use``.  The CPU comparisons run in a child
-process that never opens the GPU.  The last line is
-``{"ok": true, "device": {...}}``; a run with no GPU, or a phase that fails,
-exits non-zero without it.
+limit, and the device's ``peak_bytes_in_use`` since the process started
+(the fit runs first, so its figure is the fit's own; the dense float64
+reference of the kernels phase, the largest allocation, runs last).  The
+CPU comparisons run in a child process that never opens the GPU.  The last
+line is ``{"ok": true, "device": {...}}``; a run with no GPU, or a phase
+that fails, exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -544,12 +546,13 @@ def run(sizes: Sizes, seed: int, data: str, multi: bool) -> list:
     p = make_data(data, sizes, seed, multi)
     if multi:
         return [phase_multi(p, data)]
-    recs = [phase_kernels(p, sizes, seed)]
+    # the kernels phase last: its dense f64 reference would otherwise
+    # set every later phase's peak_bytes_in_use
     fit = phase_fit(p, sizes, data)
-    recs += [fit, phase_scan(p, sizes, data, fit["model"]),
-             phase_rare(p, data, fit["model"]),
-             phase_aggregate(p, sizes, data, fit["model"])]
-    return recs
+    return [fit, phase_scan(p, sizes, data, fit["model"]),
+            phase_rare(p, data, fit["model"]),
+            phase_aggregate(p, sizes, data, fit["model"]),
+            phase_kernels(p, sizes, seed)]
 
 
 def main(argv=None) -> int:
@@ -557,7 +560,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--multi", action="store_true",
                     help="four GPUs: sharded fit and scan vs one GPU")
-    ap.add_argument("--data", default=os.path.join(ROOT, ".smoke_data"))
     ap.add_argument("--cpu-child", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -583,7 +585,7 @@ def main(argv=None) -> int:
                           compile_cache=cache, platform=devs[0].platform,
                           kind=devs[0].device_kind, count=len(devs))),
           flush=True)
-    run(FULL, args.seed, args.data, args.multi)
+    run(FULL, args.seed, os.path.join(ROOT, ".smoke_data"), args.multi)
     print(json.dumps({"ok": True, "device": {
         "platform": devs[0].platform, "kind": devs[0].device_kind,
         "count": len(devs)}}))

@@ -21,11 +21,19 @@ import argparse
 import sys
 
 
-def _read_pheno(path) -> dict:
-    """Phenotype TSV/CSV (header row) -> {column: numpy array}.  A column
-    of integers reads as int64, of numbers as float64 (empty or NA cells
-    as NaN), anything else as strings — what the fit needs, without
-    pandas."""
+# cells read as missing: pandas.read_csv's default na_values
+NA_TOKENS = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
+
+
+def _read_pheno(path, id_col: str = "sample.id") -> dict:
+    """Phenotype TSV/CSV (header row) -> {column: numpy array}.  The
+    ``id_col`` column reads as strings; any other column of integers as
+    int64, of numbers as float64, and of text as strings (a factor in
+    the formula); :data:`NA_TOKENS` cells read as NaN or None — what the
+    fit needs, without pandas."""
     import csv
     import gzip
     sep = "," if path.endswith(".csv") or path.endswith(".csv.gz") else "\t"
@@ -33,21 +41,46 @@ def _read_pheno(path) -> dict:
           else open(path, newline="")) as fh:
         rows = list(csv.reader(fh, delimiter=sep))
     header, body = rows[0], [r for r in rows[1:] if r]
-    return {name: _pheno_column([r[j] for r in body])
+    return {name: _pheno_column(name, [r[j] for r in body],
+                                text=name == id_col)
             for j, name in enumerate(header)}
 
 
-def _pheno_column(cells):
+def _pheno_column(name, cells, text=False):
+    """One phenotype column; a mostly-numeric column with cells that are
+    neither numbers nor missing-value tokens is an error, not a factor."""
     import numpy as np
+    if text:
+        return _text_column(cells)
     try:
         return np.asarray([int(c) for c in cells], np.int64)
     except ValueError:
         pass
-    try:
-        return np.asarray([np.nan if c in ("", "NA", "NaN", "nan") else
-                           float(c) for c in cells], np.float64)
-    except ValueError:
-        return np.asarray(cells, dtype=object)
+    vals, bad, n_num = [], [], 0
+    for c in cells:
+        if c.strip() in NA_TOKENS:
+            vals.append(np.nan)
+            continue
+        try:
+            vals.append(float(c))
+            n_num += 1
+        except ValueError:
+            bad.append(c)
+    if not bad:
+        return np.asarray(vals, np.float64)
+    if n_num > len(bad):
+        raise ValueError(
+            f"phenotype column {name!r} is numeric but holds {len(bad)} "
+            f"cell(s) that are neither numbers nor missing-value tokens, "
+            f"e.g. {bad[0]!r}")
+    return _text_column(cells)
+
+
+def _text_column(cells):
+    """Strings, with missing-value tokens as None (rows the fit drops)."""
+    import numpy as np
+    return np.asarray([None if c.strip() in NA_TOKENS else c
+                       for c in cells], dtype=object)
 
 
 def main(argv=None):

@@ -49,8 +49,10 @@ class NullModelConfig:
     # footprint) with on-device decode — same exact integer-slice matvec.
     grm_impl: str = "auto"        # "auto" = packed, or packed2 when the
                                   # bf16 store would top a quarter of
-                                  # device memory | "dense" f64 G_std |
-                                  # "packed" bf16 codes | "packed2" 2-bit
+                                  # device memory (packed2_split when its
+                                  # one program would not fit) | "dense"
+                                  # f64 G_std | "packed" bf16 codes |
+                                  # "packed2" 2-bit
                                   # | "packed2_split" 2-bit, one program
                                   # per leaf group (models/fit_split.py)
     stream_geno: object = "auto"  # out-of-core streamed GRM ingestion

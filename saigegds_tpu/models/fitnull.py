@@ -1115,14 +1115,36 @@ def _auto_grm_impl(n_variants: int, n_samples: int, mesh=None,
                    budget: int = 0) -> str:
     """``grm_impl="auto"``: the bf16 code store (2 B/genotype, the fastest
     matvec) while it fits in a quarter of device memory, else the 2-bit
-    planar store (0.25 B/genotype, the reference's footprint).  A quarter
-    leaves room for the PCG state, the probe pool and the decode
-    transients.  A mesh shards the bf16 store over its devices
-    (ShardedGrmHandle), so per-device memory already divides."""
+    planar store (0.25 B/genotype, the reference's footprint; one program
+    or split, :func:`_packed2_engine`).  A quarter leaves room for the
+    PCG state, the probe pool and the decode transients.  A mesh shards
+    the bf16 store over its devices (ShardedGrmHandle), so per-device
+    memory already divides."""
     budget = budget or _device_memory_budget()
     if mesh is not None or 2 * n_variants * n_samples <= budget // 4:
         return "packed"
     return "packed2"
+
+
+# Device bytes of the one-program 2-bit fit: per store byte and per padded
+# missing call.  compiled.memory_analysis() of the PCG solve and of the
+# device fit at N=430K x M=64Ki on an H100 gave 8.4-8.5 x the store plus
+# 16 B per missing call (its three index arrays; the gathers fuse into the
+# scatters); the device fit there peaked at 8.8 x the store.
+ONE_PROGRAM_PER_STORE_BYTE = 9
+ONE_PROGRAM_PER_MISSING = 16
+
+
+def _packed2_engine(store_bytes: int, n_missing: int, budget: int = 0) -> str:
+    """``grm_impl="auto"`` on the 2-bit store: the one-program fit while
+    its estimated peak stays within 90% of device memory (the rest is
+    allocator slack and the arrays outside the program), else the
+    bounded-program split engine, whose largest program is one leaf
+    group (ops/packed_grm.SplitPacked2)."""
+    budget = budget or _device_memory_budget()
+    peak = (ONE_PROGRAM_PER_STORE_BYTE * store_bytes
+            + ONE_PROGRAM_PER_MISSING * n_missing)
+    return "packed2" if peak <= 0.9 * budget else "packed2_split"
 
 
 def _prepare_fit(seq: SeqData, data, cfg, resp_cols, covs, mesh,
@@ -1283,6 +1305,10 @@ def _prepare_fit(seq: SeqData, data, cfg, resp_cols, covs, mesh,
         raise ValueError(f"grm_impl must be 'auto', 'dense', 'packed', "
                          f"'packed2' or 'packed2_split', got "
                          f"{cfg.grm_impl!r}")
+    if cfg.grm_impl == "auto" and impl == "packed2":
+        impl = _packed2_engine(
+            sum(t.nbytes for lf in grm.packed for t in lf),
+            len(grm.miss_pad))
     if impl == "packed2_split":
         # bounded-program handle: host-driven PCG over per-leaf-group
         # matvec programs (ops/packed_grm.SplitPacked2); the fitter and
